@@ -24,7 +24,7 @@ def main():
         probe_points=[(-4, 0), (4, 0)], length_units="um",
     )
     # structured=True -> the gather-free stencil solver backend (the fast
-    # TPU path); drop it for a boundary-conforming unstructured mesh.
+    # path); drop it for a boundary-conforming unstructured mesh.
     device.make_mesh(min_points=4000, structured=True)
 
     options = tdgl.SolverOptions(

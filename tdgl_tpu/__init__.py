@@ -1,4 +1,4 @@
-"""tdgl_tpu: a TPU-native time-dependent Ginzburg-Landau framework.
+"""tdgl_tpu: a JAX time-dependent Ginzburg-Landau framework for accelerators.
 
 A from-scratch JAX/XLA implementation of the capabilities of pyTDGL
 (reference: loganbvh/py-tdgl): finite-volume gTDGL dynamics of superconducting

@@ -16,7 +16,6 @@ from contextlib import contextmanager, nullcontext
 from operator import attrgetter, itemgetter
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
-import h5py
 import numpy as np
 
 from ..fv.mesh import Mesh
@@ -426,7 +425,7 @@ class Device:
             structured: Mesh on a clipped triangular lattice instead of an
                 unstructured Delaunay mesh. Structured meshes map every
                 finite-volume operator onto dense array stencils — the fast
-                (gather-free) TPU solver path. The film boundary becomes a
+                (gather-free) solver path. The film boundary becomes a
                 lattice staircase; with ``cut_cells`` (default) the
                 finite-volume weights are corrected to the true polygon
                 boundary, restoring boundary accuracy comparable to a
@@ -685,6 +684,7 @@ class Device:
             if os.path.exists(path):
                 raise IOError(f"Path already exists: {path}")
             os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            import h5py
             context = h5py.File(path, "x")
         else:
             context = nullcontext(path_or_group)
@@ -710,6 +710,7 @@ class Device:
     ) -> "Device":
         """Load a device saved with :meth:`to_hdf5`."""
         if isinstance(path_or_group, str):
+            import h5py
             context = h5py.File(path_or_group, "r")
         else:
             context = nullcontext(path_or_group)

@@ -1,9 +1,8 @@
-"""Structured hexagonal-lattice meshing for the TPU stencil backend.
+"""Structured hexagonal-lattice meshing for the stencil backend.
 
 The unstructured mesher (:mod:`tdgl_tpu.device.meshing`) produces quality
-Delaunay meshes, but the resulting finite-volume operators require gathers —
-and TPUs have no fast arbitrary-gather path (measured on-chip: an ELL matvec
-runs ~1000x slower than the equivalent stencil). This module therefore meshes
+Delaunay meshes, but the resulting finite-volume operators require gathers.
+This module meshes
 polygons with a *perfect triangular lattice* clipped to the film:
 
 * Sites live at axial-coordinate lattice points ``(r, c)``:
@@ -22,8 +21,8 @@ all post-processing), plus a :class:`HexGrid` mapping sites/edges onto a
 dense ``(rows, cols)`` grid for the stencil solver.
 
 The reference has no analog (it always meshes with ``triangle``,
-``tdgl/device/meshing.py:15-123``); this is the TPU-native redesign of the
-compute path's data layout.
+``tdgl/device/meshing.py:15-123``); this is this package's own redesign of
+the compute path's data layout.
 """
 
 from __future__ import annotations

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import h5py
 
 
 class Layer:

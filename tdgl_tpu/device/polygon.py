@@ -14,7 +14,6 @@ from __future__ import annotations
 import logging
 from typing import List, Optional, Sequence, Tuple, Union
 
-import h5py
 import numpy as np
 from scipy import interpolate
 

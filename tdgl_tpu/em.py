@@ -4,8 +4,8 @@ API parity with the reference ``tdgl/em.py`` (``convert_field:14``,
 ``biot_savart:113``, ``biot_savart_2d:252``, ``current_loop_vector_potential:339``,
 ``current_loop_field:390``, ``uniform_Bz_vector_potential:437``). The reference
 accelerates the pairwise sums with Numba ``prange``; here they are JAX
-computations (XLA-fused, chunked over evaluation points) that run on TPU or
-CPU, with NumPy fallbacks for tiny inputs.
+computations (XLA-fused, chunked over evaluation points) that run on the GPU
+or CPU, with NumPy fallbacks for tiny inputs.
 """
 
 from __future__ import annotations

@@ -5,7 +5,6 @@ API parity with the reference ``tdgl/finite_volume/edge_mesh.py:9-133``.
 
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
 from .util import get_dual_edge_lengths, get_edges

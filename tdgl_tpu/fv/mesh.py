@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple, Union
 
-import h5py
 import numpy as np
 
 from .edge_mesh import EdgeMesh

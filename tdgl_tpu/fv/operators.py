@@ -1,4 +1,4 @@
-"""Finite-volume operators in TPU-friendly form.
+"""Finite-volume operators in a form XLA can compile (static gather tables).
 
 The reference builds SciPy CSR/CSC matrices and mutates their data in place as
 the vector potential changes (``tdgl/finite_volume/operators.py:59-394``).

@@ -4,19 +4,17 @@ For meshes generated on a clipped triangular lattice
 (:mod:`tdgl_tpu.device.hexmesh`), every site sits at a grid node ``(r, c)``
 and every edge belongs to one of three direction classes. All FV operators
 then become 6-point stencils over dense ``(rows, cols)`` arrays — array
-shifts and elementwise math only, no gathers. On TPU this is the difference
-between ~4 us and ~1.5 ms per operator application (measured): the VPU has
-no fast arbitrary-gather path, so the ELL tables of
-:mod:`tdgl_tpu.fv.operators` (the general-mesh backend) run orders of
-magnitude slower than these stencils.
+shifts and elementwise math only, no gathers (the ELL tables of
+:mod:`tdgl_tpu.fv.operators`, the general-mesh backend, gather every
+neighbor).
 
 Same discrete equations as the reference (``tdgl/finite_volume/operators.py``
 builds them as SciPy sparse matrices); only the data layout differs.
 
 Conventions:
 
-* Arrays are padded to ``(Rp, Cp)`` with ``Rp % 8 == 0`` and ``Cp % 128 == 0``
-  (TPU tile alignment); padded/masked entries carry zero weights.
+* Arrays are padded to ``(Rp, Cp)`` with ``Rp % 32 == 0`` and
+  ``Cp % 128 == 0``; padded/masked entries carry zero weights.
 * Edge class ``k`` covers edges from ``(r, c)`` to ``(r, c) + OFFSETS[k]``
   with ``OFFSETS = ((0, 1), (1, 0), (1, -1))``; the canonical mesh edge
   orientation (low site index -> high) coincides with the positive offset
@@ -126,9 +124,9 @@ def build_stencil_operators(
         )
     em = mesh.edge_mesh
     R, C = grid.rows, grid.cols
-    # Rows pad to 32 (not just the 8 the TPU tiling needs): the multigrid
-    # hierarchy halves the grid per level, so divisibility depth directly
-    # sets how small (and cheap) the dense coarsest solve can get.
+    # Rows pad to 32: the multigrid hierarchy halves the grid per level,
+    # so divisibility depth directly sets how small (and cheap) the dense
+    # coarsest solve can get.
     Rp = _pad_to(R, 32)
     Cp = _pad_to(C, 128)
     shape = (Rp, Cp)

@@ -158,17 +158,38 @@ def points_in_polygon(
     poly = np.asarray(polygon, dtype=float)
     if np.allclose(poly[0], poly[-1]):
         poly = poly[:-1]
-    # matplotlib's Path.contains_points is a C implementation of the even-odd
-    # rule — orders of magnitude faster than broadcasting over all segments.
-    from matplotlib.path import Path
+    from .native import points_in_polygon_native
 
-    inside = Path(np.vstack([poly, poly[:1]])).contains_points(points)
+    inside = points_in_polygon_native(points, poly)
+    if inside is None:
+        inside = _points_in_polygon_numpy(points, poly)
     if radius != 0.0:
         d = distance_to_polygon(points, poly)
         if radius > 0:
             inside = inside | (d <= radius)
         else:
             inside = inside & (d > -radius)
+    return inside
+
+
+def _points_in_polygon_numpy(points: np.ndarray, poly: np.ndarray,
+                             chunk_elements: int = 20_000_000) -> np.ndarray:
+    """Even-odd ray casting with the native kernel's crossing test (that of
+    matplotlib's ``Path.contains_points``), chunked so the (points x edges)
+    intermediates stay bounded."""
+    x0, y0 = poly[:, 0], poly[:, 1]
+    x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
+    inside = np.empty(len(points), dtype=bool)
+    step = max(1, chunk_elements // max(1, len(poly)))
+    for s in range(0, len(points), step):
+        x = points[s:s + step, :1]
+        y = points[s:s + step, 1:]
+        above1 = y1 >= y
+        crosses = (y0 >= y) != above1
+        hit = ((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == above1
+        inside[s:s + step] = (
+            np.count_nonzero(crosses & hit, axis=1) % 2 == 1
+        )
     return inside
 
 

@@ -13,14 +13,10 @@ Split-complex pair layout
 
 Complex-valued fields are represented as REAL arrays with a trailing
 ``re/im`` axis of length 2 (``psi``: ``(N, 2)``, link variables ``U``:
-``(E, 2)``) — never as a complex dtype. The TPU runtime in this
-environment cannot run complex64 programs at all (every complex-typed
-scan/gather/elementwise program fails with ``UNIMPLEMENTED``; measured in
-``tools/complex_op_probe.py``), while the same arithmetic written out over
-f32 pairs runs fine at 100k+ sites — and the paired gather ``x[(N,K)]`` of
-an ``(N, 2)`` array is measurably FASTER than a single-plane f32 gather
-(1.75 vs 2.4 ms at 25k sites) because both components arrive in one
-gather. The structured-grid twin (:mod:`gtdgl_stencil`) uses the same
+``(E, 2)``) — never as a complex dtype. The paired gather ``x[(N,K)]`` of
+an ``(N, 2)`` array brings both components in one gather. Whether native
+complex64 would serve as well on the GPU has not been measured. The
+structured-grid twin (:mod:`gtdgl_stencil`) uses the same
 split-complex algebra over separate planes.
 
 Conventions:
@@ -50,7 +46,7 @@ def pack(z: jax.Array) -> jax.Array:
 def unpack(pair: jax.Array) -> jax.Array:
     """``(..., 2)`` re/im pair -> complex array (host/test convenience).
 
-    Do not use inside TPU-bound programs — the whole point of the pair
+    Do not use inside compiled solver programs — the whole point of the pair
     layout is that no complex dtype ever reaches the compiled program.
     """
     return jax.lax.complex(pair[..., 0], pair[..., 1])

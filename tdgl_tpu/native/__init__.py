@@ -13,6 +13,7 @@ import ctypes
 import hashlib
 import logging
 import os
+import platform
 import subprocess
 import tempfile
 from typing import Optional, Tuple
@@ -30,14 +31,25 @@ _load_attempted = False
 OK, DEGENERATE, OVERFLOWED = 0, 1, 2
 
 
+# Portable code generation only: a library tuned with -march=native on one
+# host dies with SIGILL on a host that lacks its instruction set.
+_CXXFLAGS = ("-O3", "-shared", "-fPIC")
+
+
 def _build_library() -> Optional[str]:
+    # The name is keyed on the source, the flags and the host's machine
+    # type, so a library built elsewhere is never picked up as current.
+    digest = hashlib.sha1()
     with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    lib_path = os.path.join(_HERE, f"_geometry_kernels_{digest}.so")
+        digest.update(f.read())
+    digest.update(" ".join(_CXXFLAGS).encode())
+    digest.update(platform.machine().encode())
+    lib_path = os.path.join(_HERE,
+                            f"_geometry_kernels_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib_path):
         return lib_path
     tmp = tempfile.mktemp(suffix=".so", dir=_HERE)
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", tmp]
+    cmd = ["g++", *_CXXFLAGS, _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, lib_path)

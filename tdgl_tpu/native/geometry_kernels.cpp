@@ -131,7 +131,10 @@ int is_simple_polygon(const double* poly, int64_t n, double tol)
     return 1;
 }
 
-// Even-odd point-in-polygon for a batch of points.
+// Even-odd point-in-polygon for a batch of points. The crossing test is
+// the one of matplotlib's Path.contains_points (an edge straddles the ray
+// when exactly one endpoint has y >= the point's y), so points that sit
+// exactly on the boundary are classified the same way.
 void points_in_polygon(
     const double* points, int64_t n_points,
     const double* poly, int64_t n_poly,
@@ -141,11 +144,14 @@ void points_in_polygon(
         const double x = points[2 * p];
         const double y = points[2 * p + 1];
         bool inside = false;
-        for (int64_t i = 0, j = n_poly - 1; i < n_poly; j = i++) {
-            const double xi = poly[2 * i], yi = poly[2 * i + 1];
-            const double xj = poly[2 * j], yj = poly[2 * j + 1];
-            if (((yi <= y) != (yj <= y)) &&
-                (x < xi + (y - yi) * (xj - xi) / (yj - yi))) {
+        for (int64_t k = 0; k < n_poly; ++k) {
+            const int64_t m = (k + 1 == n_poly) ? 0 : k + 1;
+            const double x0 = poly[2 * k], y0 = poly[2 * k + 1];
+            const double x1 = poly[2 * m], y1 = poly[2 * m + 1];
+            const bool above0 = y0 >= y;
+            const bool above1 = y1 >= y;
+            if (above0 != above1 &&
+                (((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == above1)) {
                 inside = !inside;
             }
         }

@@ -1,12 +1,13 @@
 """Two-level aggregation multigrid preconditioner for the mu-Poisson solve.
 
 The reference solves the (fixed) mu-Laplacian with a cached LU factorization
-(``tdgl/finite_volume/operators.py:296-308``) — exact but with no parallel
-TPU analog. Jacobi-PCG works but its iteration count grows with mesh size
-and degrades badly on meshes with strong weight contrast.
+(``tdgl/finite_volume/operators.py:296-308``) — exact but sequential, with
+no parallel accelerator analog. Jacobi-PCG works but its iteration count
+grows with mesh size and degrades badly on meshes with strong weight
+contrast.
 
-This module implements the TPU-native answer: an unsmoothed-aggregation
-two-level preconditioner.
+This module implements an unsmoothed-aggregation two-level preconditioner
+instead.
 
 * **Setup (host, once per mesh)**: greedy aggregation of sites into
   clusters on the Laplacian graph; the coarse Galerkin operator
@@ -15,7 +16,7 @@ two-level preconditioner.
 * **Apply (device, inside CG)**: symmetric V-cycle
   ``Jacobi pre-smooth -> coarse correction -> Jacobi post-smooth``.
   The fine-level transfers are gathers/segment-sums; the coarse solve is a
-  dense ``(nc, nc) @ (nc,)`` product that maps straight onto the MXU.
+  dense ``(nc, nc) @ (nc,)`` matrix-vector product.
 
 The preconditioner is symmetric positive definite on the orthogonal
 complement of the constants, which is exactly the deflated subspace CG
@@ -104,6 +105,7 @@ def build_amg(op, coarsening: int = 32,
 
 def make_amg_apply(amg_omega: float):
     """Returns the jax V-cycle apply ``(apply_A, amg, r) -> z``."""
+    import jax
     import jax.numpy as jnp
 
     def apply_amg(apply_A, amg, r):
@@ -115,7 +117,9 @@ def make_amg_apply(amg_omega: float):
         # Coarse correction.
         r2 = r - apply_A(x)
         rc = jnp.zeros(nc, rdtype).at[amg.cluster_ids].add(r2)
-        xc = amg.Ac_inv.astype(rdtype) @ rc
+        # HIGHEST: an f32 matmul may otherwise run in TF32 on the GPU.
+        xc = jnp.matmul(amg.Ac_inv.astype(rdtype), rc,
+                        precision=jax.lax.Precision.HIGHEST)
         x = x + xc[amg.cluster_ids]
         # Post-smooth (symmetric cycle).
         r3 = r - apply_A(x)

@@ -3,7 +3,7 @@
 The reference caches a sparse LU factorization of the (fixed) mu-Laplacian
 and back-substitutes every step (``tdgl/finite_volume/operators.py:296-308``,
 ``tdgl/solver/solver.py:504-518``). Sparse triangular solves are inherently
-sequential and have no efficient TPU mapping, so we solve the Poisson problem
+sequential and map poorly onto an accelerator, so we solve the Poisson problem
 iteratively instead:
 
 * **Deflated, Jacobi-preconditioned conjugate gradients** on the symmetric
@@ -339,7 +339,7 @@ def cg_solve_2step_topup(
     which is solved here directly via the 2x2 Gram system. Why bother:
     sequential CG's scalars (alpha, beta) each gate the next vector op —
     4 reduction -> scalar -> broadcast round trips per 2 iterations, each
-    a pipeline sync on TPU. The blocked form computes the SAME basis with
+    a device-wide synchronization. The blocked form computes the SAME basis with
     2 applies + 2 V-cycles and then all 5 Gram/rhs dot products as one
     *independent* reduction batch, removing 3 of the 4 sync points from
     the hot path.
@@ -450,7 +450,7 @@ def mg_richardson_grid(
 
     With ``fixed_iters`` set, exactly that many cycles run in a
     ``lax.fori_loop`` with **no** stopping test and no reductions inside the
-    loop — the cheapest-per-iteration solve on TPU, and (like
+    loop — the cheapest-per-iteration solve, and (like
     :func:`cg_solve_fixed`) a smooth map of its inputs, which the screening
     fixed point requires. The final residual norm is still computed once for
     the caller's failure gate. ``topup=True`` additionally continues

@@ -36,87 +36,23 @@ class FFTScreeningData(NamedTuple):
 
     The rfft2 spectra of the per-edge-class ``1/dist`` kernels on the
     zero-padding-doubled grid, stored as **separate real/imaginary arrays**
-    (``(3, 2*Rp, Cp + 1)`` each): the TPU runtime used here faults on
-    complex-typed elementwise multiplies, so the spectrum product runs in
+    (``(3, 2*Rp, Cp + 1)`` each); the spectrum product runs in
     split-complex arithmetic.
-
-    ``dft``: optional precomputed DFT *matrices* for the MXU evaluation
-    path (:func:`induced_vector_potential_mxu`) — XLA's FFT lowering on
-    TPU is lane-shuffle-bound (~0.5 TFLOP/s measured), while the same
-    transforms expressed as dense DFT matmuls run on the systolic array.
-    ``None`` when the path is disabled.
     """
 
     Ghat_re: jax.Array
     Ghat_im: jax.Array
-    dft: Optional["DFTMatrices"] = None
     # Site-evaluation kernel (``1/dist`` between lattice points, with the
     # self term moment-matched against the edge-class kernels — see
     # build_fft_screening): ``(2*Rp, Cp + 1)`` spectra for the cheaper
     # evaluate-at-sites-then-interpolate screening path
-    # (:func:`induced_vector_potential_mxu_site`). ``None`` when not built.
+    # (:func:`induced_vector_potential_fft_site`). ``None`` when not built.
     G0hat_re: Optional[jax.Array] = None
     G0hat_im: Optional[jax.Array] = None
 
 
-class DFTMatrices(NamedTuple):
-    """Dense DFT factor matrices for the MXU screening path.
-
-    Truncations bake in the known zero/crop structure of the convolution:
-    forward transforms only touch the ``Rp``/``Cp`` nonzero rows/cols of
-    the zero-padded input, and inverses only produce the unaliased
-    ``Rp``/``Cp`` quadrant.
-    """
-
-    # cols forward (real input, Cp nonzero cols -> Cp+1 rfft bins)
-    wc_cos: jax.Array   # (Cp, Cp+1)
-    wc_sin: jax.Array   # (Cp, Cp+1) — negated sin (rfft convention)
-    # rows forward (complex, Rp nonzero rows -> 2Rp bins)
-    wr_cos: jax.Array   # (2Rp, Rp)
-    wr_sin: jax.Array   # (2Rp, Rp)
-    # rows inverse (2Rp bins -> first Rp outputs, 1/(2Rp) folded in)
-    vr_cos: jax.Array   # (Rp, 2Rp)
-    vr_sin: jax.Array   # (Rp, 2Rp)
-    # cols inverse (Cp+1 rfft bins -> first Cp real outputs; hermitian
-    # doubling and 1/(2Cp) folded in)
-    vc_cos: jax.Array   # (Cp+1, Cp)
-    vc_sin: jax.Array   # (Cp+1, Cp)
-
-
-def build_dft_matrices(Rp: int, Cp: int, dtype=np.float32) -> DFTMatrices:
-    """Dense DFT factor matrices (host-built in float64, stored ``dtype``)
-    for :func:`induced_vector_potential_mxu`."""
-    R2, C2 = 2 * Rp, 2 * Cp
-    nb = Cp + 1
-    c = np.arange(Cp)[:, None]
-    k = np.arange(nb)[None, :]
-    ang_c = 2.0 * np.pi * c * k / C2
-    wc_cos = np.cos(ang_c)
-    wc_sin = -np.sin(ang_c)
-    r = np.arange(Rp)[None, :]
-    k2 = np.arange(R2)[:, None]
-    ang_r = 2.0 * np.pi * k2 * r / R2
-    wr_cos = np.cos(ang_r)
-    wr_sin = np.sin(ang_r)  # e^{-i a}(x+iy): re = cos x + sin y
-    ro = np.arange(Rp)[:, None]
-    ang_v = 2.0 * np.pi * ro * np.arange(R2)[None, :] / R2
-    vr_cos = np.cos(ang_v) / R2
-    vr_sin = np.sin(ang_v) / R2
-    co = np.arange(Cp)[None, :]
-    kb = np.arange(nb)[:, None]
-    ang_vc = 2.0 * np.pi * kb * co / C2
-    scale = np.full((nb, 1), 2.0)
-    scale[0] = 1.0
-    scale[-1] = 1.0
-    vc_cos = scale * np.cos(ang_vc) / C2
-    vc_sin = -scale * np.sin(ang_vc) / C2
-    rdt = np.float64 if dtype == np.float64 else np.float32
-    return DFTMatrices(*(jnp.asarray(m.astype(rdt)) for m in (
-        wc_cos, wc_sin, wr_cos, wr_sin, vr_cos, vr_sin, vc_cos, vc_sin)))
-
-
-def build_fft_screening(sten, maps, grid, dtype=np.float32,
-                        with_dft: bool = True) -> FFTScreeningData:
+def build_fft_screening(sten, maps, grid,
+                        dtype=np.float32) -> FFTScreeningData:
     """Build the per-edge-class convolution kernels for a structured mesh.
 
     Args:
@@ -124,7 +60,6 @@ def build_fft_screening(sten, maps, grid, dtype=np.float32,
         maps: :class:`GridMaps` (padded shape).
         grid: The mesh's :class:`HexGrid` (dimensionless spacing).
         dtype: Real dtype of the solve (sets the spectrum precision).
-        with_dft: Also build the dense DFT matrices for the MXU path.
     """
     Rp, Cp = maps.shape
     h = float(grid.spacing)
@@ -164,74 +99,9 @@ def build_fft_screening(sten, maps, grid, dtype=np.float32,
     return FFTScreeningData(
         Ghat_re=jnp.asarray(Ghat.real.astype(rdt)),
         Ghat_im=jnp.asarray(Ghat.imag.astype(rdt)),
-        dft=build_dft_matrices(Rp, Cp, dtype) if with_dft else None,
         G0hat_re=jnp.asarray(G0hat.real.astype(rdt)),
         G0hat_im=jnp.asarray(G0hat.imag.astype(rdt)),
     )
-
-
-def induced_vector_potential_mxu(
-    fft_data: FFTScreeningData, sten, J_weighted: jax.Array,
-    bf16: bool = False,
-) -> jax.Array:
-    """The SAME convolution as :func:`induced_vector_potential_fft`, with
-    every transform expressed as a dense DFT **matmul** on the MXU.
-
-    Why: XLA's FFT lowering on TPU is lane-shuffle-bound — measured ~577
-    us for the benchmark's 8 transforms at (512, 768), ~0.5 TFLOP/s. The
-    same transforms as dense DFT factor matrices are ~4.4 GFLOP of
-    systolic-array matmuls (with the zero/crop structure baked into
-    truncated factors), which the MXU executes several times faster.
-    Precision: float32 accumulation (``Precision.HIGHEST``); DFT-sum
-    rounding is ~sqrt(N) eps ~ 3e-6 relative — far below the screening
-    fixed point's 3e-4 float32 floor. Exact-arithmetic-identical to the
-    FFT path (parity-tested).
-
-    ``bf16=True`` runs the matmuls at single-pass bf16 operand precision
-    (``Precision.DEFAULT`` on TPU): 3x less MXU work for a ~1e-3 relative
-    perturbation of the convolution kernel. The perturbed operator is
-    deterministic, so the screening fixed point converges cleanly to the
-    solution of the perturbed equation — an error of the same order as the
-    float32 screening precision floor (``docs/perf_notes.md``). Opt-in via
-    ``SolverOptions(screening_dft_precision="bf16")``.
-    """
-    rdtype = J_weighted.dtype
-    Rp, Cp = J_weighted.shape[:2]
-    d = fft_data.dft
-    # HIGH = 3-pass bf16x3 operand decomposition with float32 MXU
-    # accumulation: operand rounding ~5e-7 relative — equivalent to f32
-    # for these DFT sums (parity-tested at 1e-5) at half the pass count
-    # of HIGHEST.
-    prec = (jax.lax.Precision.DEFAULT if bf16
-            else jax.lax.Precision.HIGH)
-
-    def mm(a, b):
-        return jnp.matmul(a, b, precision=prec)
-
-    # (2, Rp, Cp): component-major for clean batched matmuls.
-    J2 = jnp.moveaxis(J_weighted.astype(d.wc_cos.dtype), -1, 0)
-    # cols forward (only the Cp nonzero cols of the zero-padded input).
-    c1_re = mm(J2, d.wc_cos)                  # (2, Rp, nb)
-    c1_im = mm(J2, d.wc_sin)
-    # rows forward (only the Rp nonzero rows).
-    f2_re = (jnp.einsum("kr,brn->bkn", d.wr_cos, c1_re, precision=prec)
-             + jnp.einsum("kr,brn->bkn", d.wr_sin, c1_im, precision=prec))
-    f2_im = (jnp.einsum("kr,brn->bkn", d.wr_cos, c1_im, precision=prec)
-             - jnp.einsum("kr,brn->bkn", d.wr_sin, c1_re, precision=prec))
-    # spectrum product per edge class (split complex).
-    gr = fft_data.Ghat_re[:, None].astype(f2_re.dtype)   # (3, 1, 2Rp, nb)
-    gi = fft_data.Ghat_im[:, None].astype(f2_re.dtype)
-    p_re = gr * f2_re[None] - gi * f2_im[None]           # (3, 2, 2Rp, nb)
-    p_im = gr * f2_im[None] + gi * f2_re[None]
-    # rows inverse (keep the unaliased Rp rows).
-    y_re = (jnp.einsum("rk,cbkn->cbrn", d.vr_cos, p_re, precision=prec)
-            - jnp.einsum("rk,cbkn->cbrn", d.vr_sin, p_im, precision=prec))
-    y_im = (jnp.einsum("rk,cbkn->cbrn", d.vr_cos, p_im, precision=prec)
-            + jnp.einsum("rk,cbkn->cbrn", d.vr_sin, p_re, precision=prec))
-    # cols inverse (hermitian-fold to the Cp real outputs).
-    A = mm(y_re, d.vc_cos) + mm(y_im, d.vc_sin)          # (3, 2, Rp, Cp)
-    A = jnp.moveaxis(A, 1, -1)                           # (3, Rp, Cp, 2)
-    return (A * sten.edge_valid[..., None].astype(A.dtype)).astype(rdtype)
 
 
 def induced_vector_potential_fft(
@@ -418,48 +288,5 @@ def induced_vector_potential_fft_site(
                            gr * Jhat.imag + gi * Jhat.real)
     A = jnp.fft.irfft2(prod, s=(2 * Rp, 2 * Cp), axes=(0, 1))
     A_site = A[:Rp, :Cp, :]
-    return _interp_site_to_edges(sten, A_site, J_weighted,
-                                 taps).astype(rdtype)
-
-
-def induced_vector_potential_mxu_site(
-    fft_data: FFTScreeningData, sten, J_weighted: jax.Array, taps,
-    bf16: bool = False,
-) -> jax.Array:
-    """Site-evaluated variant of :func:`induced_vector_potential_mxu`
-    (same approximation as :func:`induced_vector_potential_fft_site`,
-    exact-arithmetic-identical to it; parity-tested).
-
-    The inverse DFT matmuls — 75% of the exact path's ~4.4 GFLOP — run
-    on a 2-element component batch instead of the (3 classes x 2
-    components) batch: ~2.2 GFLOP total and 1/3-size spectrum/output
-    intermediates (the evaluation is bandwidth-sensitive, so the
-    intermediate shrink matters as much as the FLOPs).
-    """
-    rdtype = J_weighted.dtype
-    d = fft_data.dft
-    prec = (jax.lax.Precision.DEFAULT if bf16
-            else jax.lax.Precision.HIGH)
-
-    def mm(a, b):
-        return jnp.matmul(a, b, precision=prec)
-
-    J2 = jnp.moveaxis(J_weighted.astype(d.wc_cos.dtype), -1, 0)
-    c1_re = mm(J2, d.wc_cos)                  # (2, Rp, nb)
-    c1_im = mm(J2, d.wc_sin)
-    f2_re = (jnp.einsum("kr,brn->bkn", d.wr_cos, c1_re, precision=prec)
-             + jnp.einsum("kr,brn->bkn", d.wr_sin, c1_im, precision=prec))
-    f2_im = (jnp.einsum("kr,brn->bkn", d.wr_cos, c1_im, precision=prec)
-             - jnp.einsum("kr,brn->bkn", d.wr_sin, c1_re, precision=prec))
-    gr = fft_data.G0hat_re[None].astype(f2_re.dtype)     # (1, 2Rp, nb)
-    gi = fft_data.G0hat_im[None].astype(f2_re.dtype)
-    p_re = gr * f2_re - gi * f2_im                       # (2, 2Rp, nb)
-    p_im = gr * f2_im + gi * f2_re
-    y_re = (jnp.einsum("rk,bkn->brn", d.vr_cos, p_re, precision=prec)
-            - jnp.einsum("rk,bkn->brn", d.vr_sin, p_im, precision=prec))
-    y_im = (jnp.einsum("rk,bkn->brn", d.vr_cos, p_im, precision=prec)
-            + jnp.einsum("rk,bkn->brn", d.vr_sin, p_re, precision=prec))
-    A = mm(y_re, d.vc_cos) + mm(y_im, d.vc_sin)          # (2, Rp, Cp)
-    A_site = jnp.moveaxis(A, 0, -1)                      # (Rp, Cp, 2)
     return _interp_site_to_edges(sten, A_site, J_weighted,
                                  taps).astype(rdtype)

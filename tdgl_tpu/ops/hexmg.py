@@ -14,12 +14,11 @@ this preconditioner converges in ~3 iterations vs ~18 for the two-level
 block AMG — at ~9 fine-apply equivalents per V-cycle, the mu solve drops
 several-fold in wall-clock.
 
-The V-cycle runs in bfloat16 (preconditioner accuracy only shapes the
-spectrum; iteration counts match f32 — verified in tests).
+The V-cycle runs in the solve's own dtype.
 
 The reference solves this system with a cached sparse LU
 (``tdgl/finite_volume/operators.py:296-308``); multilevel cycles are the
-TPU-native replacement that keeps scaling past where LU dies.
+accelerator-resident replacement that keeps scaling past where LU dies.
 """
 
 from __future__ import annotations
@@ -37,9 +36,9 @@ class HexMGData:
     """Multigrid hierarchy (pytree: arrays as children, layout as aux).
 
     Attributes:
-        level_arrays: Per level ``dict(W=(K, R, C) bf16, inv_diag=(R, C)
-            bf16)``; the coarsest level instead holds ``dict(Ainv=(nc, nc)
-            bf16)``.
+        level_arrays: Per level ``dict(W=(K, R, C), inv_diag=(R, C))`` in
+            float32; the coarsest level instead holds ``dict(Ainv=(nc,
+            nc))``.
         offsets: Per level, a static tuple of (dr, dc) stencil offsets
             matching ``W``'s leading axis.
         shapes: Per level, the (R, C) grid shape.
@@ -124,7 +123,7 @@ def build_hexmg(
         maps: :class:`GridMaps`.
         mesh: The structured mesh (edge graph source).
         p_omega: Prolongation-smoothing weight in ``(I - omega D^+ A) P0``.
-        min_coarse: Solve directly (dense pseudo-inverse on the MXU) once a
+        min_coarse: Solve directly (dense pseudo-inverse matmul) once a
             level has at most this many grid nodes.
         smooth_levels: Smooth the prolongation only on the finest this-many
             levels; PWC below. SA stencils widen under Galerkin coarsening
@@ -160,23 +159,10 @@ def build_hexmg(
         d = A.diagonal()
         dinv = np.where(d > 1e-12, 1.0 / np.maximum(d, 1e-30), 0.0)
         offs, W = _extract_offset_stencil(A, R, C)
-        # 2x2 block-sum transfer matrices: restriction/prolongation run as
-        # small MXU matmuls P_R @ v @ P_C^T. Reshape-sum / jnp.repeat
-        # transfers cost ~60 us on TPU (sublane/lane shuffles); these
-        # matmuls cost ~2 us.
-        PR = np.zeros((R // 2, R), np.float32)
-        PR[np.arange(R // 2), 2 * np.arange(R // 2)] = 1.0
-        PR[np.arange(R // 2), 2 * np.arange(R // 2) + 1] = 1.0
-        PC = np.zeros((C // 2, C), np.float32)
-        PC[np.arange(C // 2), 2 * np.arange(C // 2)] = 1.0
-        PC[np.arange(C // 2), 2 * np.arange(C // 2) + 1] = 1.0
-        # Stored in float32; the apply casts to bfloat16 for f32 solves
-        # and keeps f64 for f64 (parity) solves.
+        # Stored in float32; the apply casts to the solve's dtype.
         level_arrays.append(dict(
             W=jnp.asarray(W),
             inv_diag=jnp.asarray(dinv.reshape(R, C).astype(np.float32)),
-            PR=jnp.asarray(PR),
-            PC=jnp.asarray(PC),
         ))
         offsets_all.append(offs)
         shapes.append((R, C))
@@ -261,9 +247,20 @@ def level_apply(mg: HexMGData, lvl: int, x: jax.Array) -> jax.Array:
     return acc
 
 
+def block_sum(shape: Tuple[int, int], r: jax.Array) -> jax.Array:
+    """2x2 block-sum restriction of an ``shape`` = (R, C) grid."""
+    R, C = shape
+    return r.reshape(R // 2, 2, C // 2, 2).sum(axis=(1, 3))
+
+
+def block_broadcast(xc: jax.Array) -> jax.Array:
+    """Transpose of :func:`block_sum` (2x2 broadcast)."""
+    return jnp.repeat(jnp.repeat(xc, 2, axis=0), 2, axis=1)
+
+
 def make_hexmg_apply(amg_omega: float, kappa: float = 1.0,
                      n_smooth: int = 1):
-    """Returns the jax V-cycle apply ``(mg, r) -> z`` (bf16 inside).
+    """Returns the jax V-cycle apply ``(mg, r) -> z`` (in ``r``'s dtype).
 
     ``amg_omega`` damps the Jacobi smoother; ``kappa`` over-corrects the
     coarse-grid update (useful with unsmoothed transfers; 1.0 with SA);
@@ -272,25 +269,6 @@ def make_hexmg_apply(amg_omega: float, kappa: float = 1.0,
     apply per level but strengthens the cycle's contraction).
     """
 
-    def block_sum(mg, lvl, r):
-        """2x2 block-sum restriction. On TPU this runs as two small MXU
-        matmuls (P_R @ r @ P_C^T): reshape-sum costs ~60 us in sublane/lane
-        shuffles there. On CPU the reshape-sum is the fast form."""
-        if jax.default_backend() == "tpu":
-            lev = mg.level_arrays[lvl]
-            return (lev["PR"].astype(r.dtype) @ r
-                    @ lev["PC"].astype(r.dtype).T)
-        R, C = mg.shapes[lvl]
-        return r.reshape(R // 2, 2, C // 2, 2).sum(axis=(1, 3))
-
-    def block_broadcast(mg, lvl, xc):
-        """Transpose of :func:`block_sum` (2x2 broadcast)."""
-        if jax.default_backend() == "tpu":
-            lev = mg.level_arrays[lvl]
-            return (lev["PR"].astype(xc.dtype).T @ xc
-                    @ lev["PC"].astype(xc.dtype))
-        return jnp.repeat(jnp.repeat(xc, 2, axis=0), 2, axis=1)
-
     def smooth_P_T(mg, lvl, r):
         """P^T r = P0^T (r - omega_p A (D^+ r)) then 2x2 block sum."""
         om_p = mg.p_omega[lvl]  # static
@@ -298,12 +276,12 @@ def make_hexmg_apply(amg_omega: float, kappa: float = 1.0,
             inv_diag = mg.level_arrays[lvl]["inv_diag"].astype(r.dtype)
             r = r - jnp.asarray(om_p, r.dtype) * level_apply(
                 mg, lvl, inv_diag * r)
-        return block_sum(mg, lvl, r)
+        return block_sum(mg.shapes[lvl], r)
 
     def smooth_P(mg, lvl, xc):
         """P xc = (I - omega_p D^+ A) (2x2 broadcast of xc)."""
         om_p = mg.p_omega[lvl]  # static
-        up = block_broadcast(mg, lvl, xc)
+        up = block_broadcast(xc)
         if om_p:
             inv_diag = mg.level_arrays[lvl]["inv_diag"].astype(xc.dtype)
             up = up - jnp.asarray(om_p, xc.dtype) * (
@@ -324,8 +302,10 @@ def make_hexmg_apply(amg_omega: float, kappa: float = 1.0,
         lev = mg.level_arrays[lvl]
         if "Ainv" in lev:
             R, C = mg.shapes[lvl]
-            return (lev["Ainv"].astype(b.dtype) @ b.reshape(-1)
-                    ).reshape(R, C)
+            # HIGHEST: an f32 matmul may otherwise run in TF32 on the GPU.
+            return jnp.matmul(lev["Ainv"].astype(b.dtype), b.reshape(-1),
+                              precision=jax.lax.Precision.HIGHEST
+                              ).reshape(R, C)
         inv_diag = lev["inv_diag"].astype(b.dtype)
         x = jnp.asarray(omegas[0], b.dtype) * inv_diag * b
         for i in range(1, n_sweeps):
@@ -336,17 +316,11 @@ def make_hexmg_apply(amg_omega: float, kappa: float = 1.0,
         x = x + jnp.asarray(kappa, b.dtype) * smooth_P(mg, lvl, xc)
         for i in range(n_sweeps):
             r = b - level_apply(mg, lvl, x)
-            x = x + jnp.asarray(omegas[n_sweeps - 1 - i], b.dtype)                 * inv_diag * r
+            x = x + (jnp.asarray(omegas[n_sweeps - 1 - i], b.dtype)
+                      * inv_diag * r)
         return x
 
     def apply_mg(mg: HexMGData, r: jax.Array) -> jax.Array:
-        # bf16 cycle for f32 solves on TPU (the production path; measured to
-        # cost no CG iterations). Full precision for f64 parity solves —
-        # a rounded preconditioner stalls CG near machine-level tolerances —
-        # and on CPU, where bf16 is emulated (orders of magnitude slower).
-        use_bf16 = (r.dtype == jnp.float32
-                    and jax.default_backend() == "tpu")
-        cdtype = jnp.bfloat16 if use_bf16 else r.dtype
-        return cycle(mg, 0, r.astype(cdtype)).astype(r.dtype)
+        return cycle(mg, 0, r)
 
     return apply_mg

@@ -5,17 +5,15 @@ Numba ``prange`` CPU loop or a raw CuPy kernel
 (``tdgl/solver/screening.py:12-75``). This is the dense O(E x S) hot spot of
 screened simulations.
 
-TPU-native formulation: the pairwise distance matrix is expressed through a
-Gram matrix, so the whole kernel becomes
+Here the whole kernel is one elementwise broadcast and one matrix product,
 
-    invD = rsqrt(sum_c (e_c - s_c)^2)   (VPU broadcast over an edge block)
-    A    = invD @ (J * a)               (MXU matmul)
+    invD = rsqrt(sum_c (e_c - s_c)^2)   (broadcast over an edge block)
+    A    = invD @ (J * a)               (matmul)
 
-blocked over edges so the (block x S) intermediate stays in fast memory. The
+blocked over edges so the (block x S) intermediate stays bounded. The
 distance is computed by direct differences (not the Gram-matrix identity)
 because ``|r|^2 - 2 e.s`` cancellation destroys float32 precision when the
-device extent is much larger than the mesh spacing. A fused Pallas variant
-can remove the intermediate HBM traffic later.
+device extent is much larger than the mesh spacing.
 """
 
 from __future__ import annotations
@@ -60,7 +58,9 @@ def induced_vector_potential(
         dy = ec_block[:, 1][:, None] - sites[:, 1][None, :]
         d2 = dx * dx + dy * dy
         inv_d = jax.lax.rsqrt(jnp.maximum(d2, jnp.finfo(dtype).tiny))
-        return inv_d @ J_weighted  # (bs, 2) — MXU
+        # HIGHEST: an f32 matmul may otherwise run in TF32 on the GPU.
+        return jnp.matmul(inv_d, J_weighted,
+                          precision=jax.lax.Precision.HIGHEST)  # (bs, 2)
 
     out = jax.lax.map(block_fn, ec_blocks)
     return out.reshape(n_blocks * block_size, 2)[:E]

@@ -20,7 +20,7 @@ the SAME convolution (``ops/fft_screening.py``) with a classic
 
 Per-device FFT work and spectrum memory are ``1/n`` of the replicated
 evaluation (the kernels ``Ghat`` are stored column-sharded), at the cost
-of two all-to-alls of the J spectrum over ICI. Parity with the replicated
+of two all-to-alls of the J spectrum between devices. Parity with the replicated
 path is pinned by ``tests/test_parallel.py``.
 """
 

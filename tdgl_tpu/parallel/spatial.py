@@ -1,18 +1,18 @@
-"""Single-problem multi-chip execution: shard one structured solve's grid
+"""Single-problem multi-device execution: shard one structured solve's grid
 across devices.
 
 The sweep axis (:mod:`tdgl_tpu.parallel.sweep`) is the natural use of extra
-chips when many independent solves are wanted; THIS module spans chips with
-**one** problem — for meshes too large for a single chip's HBM, or to
-shorten wall-clock on one big solve.
+devices when many independent solves are wanted; THIS module spans devices
+with **one** problem — for meshes too large for a single device's memory,
+or to shorten wall-clock on one big solve.
 
 Design: the stencil backend's state is dense ``(Rp, Cp)`` grid arrays and
 every operator is a 6-point stencil (`jnp.roll` + elementwise math), so the
-idiomatic TPU decomposition is **SPMD over grid rows**: place every
+natural decomposition is **SPMD over grid rows**: place every
 grid-shaped array with a ``NamedSharding`` that splits the row axis across
 a 1D ``jax.sharding.Mesh``, and run the *unchanged* compiled chunk program.
 XLA's SPMD partitioner turns each roll into a halo exchange
-(collective-permute over ICI) and each reduction into an all-reduce —
+(collective-permute) and each reduction into an all-reduce —
 hand-written ppermute halo code would express exactly the same
 communication, with none of the compiler's fusion.
 
@@ -21,7 +21,7 @@ too small to split usefully; coarse levels and the dense coarsest inverse
 replicate (they are tiny). FFT screening spectra replicate.
 
 There is no reference analog (the reference is single-process,
-``SURVEY.md`` §2.8); this is TPU-native new capability.
+``SURVEY.md`` §2.8); this is new capability.
 """
 
 from __future__ import annotations
@@ -98,11 +98,6 @@ def shard_solver_spatially(solver, mesh: Optional[Mesh] = None, *,
     import dataclasses
 
     cfg_updates = {}
-    if getattr(solver.cfg, "use_pallas_step", False):
-        # A pallas_call cannot be auto-partitioned by XLA's SPMD
-        # partitioner; rebuild the chunk program on the roll-chain XLA
-        # formulation (identical physics) so the sharded run stays SPMD.
-        cfg_updates["use_pallas_step"] = False
     Rp, Cp = solver.maps.shape
     if n_dev > 1 and spatial_spec((Rp, Cp), Rp, Cp, n_dev) == P():
         msg = (

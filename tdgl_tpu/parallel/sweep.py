@@ -4,9 +4,9 @@ The reference has no parallel execution beyond a single GPU (SURVEY 2.8): a
 physicist runs IV curves or field sweeps as many sequential solves. Here the
 whole compiled TDGL step is ``vmap``-ed over a batch axis of physical
 parameters (bias current and/or applied-field scale) and sharded across a
-``jax.sharding.Mesh`` of TPU devices, so an N-point sweep costs one solve of
-wall-clock on N chips. Collectives ride ICI automatically via XLA; there is
-no hand-written communication.
+``jax.sharding.Mesh`` of devices, so an N-point sweep costs one solve of
+wall-clock on N devices. XLA inserts any collectives; there is no
+hand-written communication.
 
 All inner control flow (dt retries, screening fixed point, CG) is
 vmap-safe: every ``while_loop`` body gates its updates per batch member.

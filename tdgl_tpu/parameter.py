@@ -5,7 +5,7 @@ API parity with the reference ``tdgl/parameter.py:66-439`` (``Parameter``,
 signature validation, operator algebra, optional result caching for
 time-dependent parameters, and cloudpickle round-trips.
 
-TPU extension: a Parameter created with ``jittable=True`` promises that
+Extension: a Parameter created with ``jittable=True`` promises that
 ``func`` is jax-traceable. The solver then evaluates it *inside* the compiled
 step function (no host callback per step), which is the fast path for
 time-dependent applied fields and disorder.
@@ -19,7 +19,6 @@ import operator
 from numbers import Number
 from typing import Callable, Optional, Union
 
-import cloudpickle
 import numpy as np
 
 _OPERATOR_SYMBOLS = {
@@ -50,7 +49,7 @@ class Parameter:
             a keyword-only argument.
         time_dependent: Declares that ``func`` depends on the keyword ``t``.
         jittable: Declares that ``func`` is jax-traceable, enabling in-jit
-            evaluation by the solver (TPU fast path; not in the reference).
+            evaluation by the solver (fast path; not in the reference).
         kwargs: Fixed keyword arguments passed to ``func``.
     """
 
@@ -229,10 +228,12 @@ class Parameter:
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_cache"] = {}
+        import cloudpickle
         state["func"] = cloudpickle.dumps(state["func"])
         return state
 
     def __setstate__(self, state):
+        import cloudpickle
         state["func"] = cloudpickle.loads(state["func"])
         self.__dict__.update(state)
 
@@ -342,11 +343,13 @@ class CompositeParameter(Parameter):
     def __getstate__(self):
         state = self.__dict__.copy()
         state["_cache"] = {}
+        import cloudpickle
         state["left"] = cloudpickle.dumps(state["left"])
         state["right"] = cloudpickle.dumps(state["right"])
         return state
 
     def __setstate__(self, state):
+        import cloudpickle
         state["left"] = cloudpickle.loads(state["left"])
         state["right"] = cloudpickle.loads(state["right"])
         self.__dict__.update(state)

@@ -9,9 +9,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Literal, Optional, Sequence, Tuple, Union
 
-import h5py
 import numpy as np
-from tqdm import tqdm
 
 from ..geometry import path_vectors
 
@@ -317,6 +315,8 @@ class DynamicsData:
         times = np.zeros(num_steps)
         mus = np.zeros((len(probe_points), num_steps))
         thetas = np.zeros((len(probe_points), num_steps))
+        import h5py
+        from tqdm import tqdm
         with h5py.File(solution_path, "r") as f:
             for i in tqdm(range(step_min, step_max + 1), desc="Time steps",
                           disable=(not progress_bar)):
@@ -392,6 +392,8 @@ def get_current_through_paths(
     times = solution.times
     raw = [np.zeros(step_max - step_min + 1) for _ in paths]
     mesh = device.mesh
+    import h5py
+    from tqdm import tqdm
     with h5py.File(solution_path, "r") as f:
         for i in tqdm(range(step_min, step_max + 1), desc="Time steps",
                       disable=(not progress_bar)):

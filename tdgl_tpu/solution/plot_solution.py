@@ -10,7 +10,6 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple, Union
 
-import matplotlib.pyplot as plt
 import numpy as np
 
 from ..utils.units import Quantity
@@ -20,6 +19,7 @@ def auto_grid(num_plots: int, max_cols: int = 3, **kwargs):
     """A figure with enough subplots for ``num_plots`` panels."""
     ncols = min(max_cols, num_plots)
     nrows = int(np.ceil(num_plots / ncols))
+    import matplotlib.pyplot as plt
     fig, axes = plt.subplots(nrows, ncols, squeeze=False, **kwargs)
     axes = np.asarray(axes)
     for ax in axes.flat[num_plots:]:
@@ -113,6 +113,7 @@ def _plot_scalar(solution, values, title, units_label, ax=None,
     device = solution.device
     tri = device.triangulation
     if ax is None:
+        import matplotlib.pyplot as plt
         _, ax = plt.subplots()
     fig = ax.get_figure()
     values = np.asarray(values, dtype=float)
@@ -150,6 +151,7 @@ def plot_currents(
     device = solution.device
     units = units or f"{solution.current_units} / {device.length_units}"
     if ax is None:
+        import matplotlib.pyplot as plt
         fig, ax = plt.subplots()
     else:
         fig = ax.get_figure()
@@ -195,6 +197,7 @@ def plot_order_parameter(
     psi = solution.tdgl_data.psi
     mag = np.abs(psi) ** 2 if squared else np.abs(psi)
     mag_label = "$|\\psi|^2$" if squared else "$|\\psi|$"
+    import matplotlib.pyplot as plt
     fig, axes = plt.subplots(1, 2, figsize=figsize or (8, 3.5))
     _plot_scalar(solution, mag, mag_label, mag_label, ax=axes[0],
                  cmap=mag_cmap, vmin=0, vmax=1, shading=shading)
@@ -274,6 +277,7 @@ def plot_field_at_positions(
                      grid_shape[0])
     xgrid, ygrid = np.meshgrid(xs, ys)
     F = griddata(positions, fields, (xgrid, ygrid), method="linear")
+    import matplotlib.pyplot as plt
     fig, ax = plt.subplots()
     if symmetric_color_scale and vmin is None:
         v = np.nanmax(np.abs(F))
@@ -311,6 +315,7 @@ def plot_current_through_paths(
     single = isinstance(currents, np.ndarray)
     if single:
         currents = [currents]
+    import matplotlib.pyplot as plt
     fig, ax = plt.subplots()
     for i, current in enumerate(currents):
         ax.plot(times, current, label=f"Path {i}", **kwargs)

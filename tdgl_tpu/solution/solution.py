@@ -17,8 +17,6 @@ from contextlib import nullcontext
 from datetime import datetime
 from typing import Any, Callable, Dict, Literal, NamedTuple, Optional, Tuple, Union
 
-import cloudpickle
-import h5py
 import numpy as np
 
 from ..about import version_dict
@@ -149,6 +147,7 @@ class Solution:
                        h5file: Optional[h5py.File] = None) -> None:
         """Load the arrays for a given saved step and derive the current
         densities."""
+        import h5py
         context = (h5py.File(self.path, "r") if h5file is None
                    else nullcontext(h5file))
         with context as f:
@@ -574,10 +573,12 @@ class Solution:
             try:
                 group.attrs[name] = func
             except TypeError:
+                import cloudpickle
                 group[f"{name}.pickle"] = np.void(cloudpickle.dumps(func))
 
         if isinstance(h5file, str):
             mode = "x" if save_tdgl_data else "r+"
+            import h5py
             context = h5py.File(h5file, mode)
         else:
             context = nullcontext(h5file)
@@ -638,11 +639,13 @@ class Solution:
             if name in group.attrs:
                 return group.attrs[name]
             if f"{name}.pickle" in group:
+                import cloudpickle
                 return cloudpickle.loads(
                     np.void(group[f"{name}.pickle"]).tobytes()
                 )
             raise IOError(f"Unable to load {name}.")
 
+        import h5py
         with h5py.File(path, "r") as f:
             grp = f["solution"]
             options_kwargs = dict(grp["options"].attrs)

@@ -7,9 +7,8 @@ gather-free stencil from :mod:`tdgl_tpu.models.gtdgl_stencil`. The order
 parameter is split into real/imaginary arrays (no complex dtype in the
 program — see ``gtdgl_stencil`` module docs).
 
-This is the fast path: on TPU the stencil step runs ~3 orders of magnitude
-faster than the ELL (gather) step of ``step.py``, which remains the backend
-for unstructured meshes.
+This is the fast path: the stencil step needs no gathers, unlike the ELL
+step of ``step.py``, which remains the backend for unstructured meshes.
 """
 
 from __future__ import annotations
@@ -92,36 +91,14 @@ def make_grid_step_fn(cfg: StepConfig):
                 if cfg.probe_ix else np.zeros((0,), np.int32))
 
     def euler_psi(sten, U, pr, pi, old_sq, mu, epsilon, dt):
-        if cfg.use_pallas_step:
-            from ..ops.pallas_step import fused_psi_update
-
-            new_r, new_i, new_sq, ok = fused_psi_update(
-                cfg.gamma, cfg.u, sten, U, pr, pi, mu, epsilon, dt
-            )
-            return gs.PsiUpdateResult(new_r, new_i, new_sq, ok)
         return gs.implicit_euler_psi(
             sten, U, pr, pi, old_sq, mu, epsilon, cfg.gamma, cfg.u, dt
         )
 
-    # Measurement-only ceiling probes (see docs/perf_notes.md "structural
-    # overhead"): each strips one per-step lax.while_loop from the hot
-    # path WITHOUT a semantic replacement, to bound how much the loop
-    # barriers themselves cost. NO_RETRY keeps correctness in practice
-    # (a psi attempt that would have retried instead fails the run
-    # loudly); NO_TOPUP additionally bypasses the residual fail gate, so
-    # its numbers are only meaningful while the fixed CG count holds the
-    # tolerance. Never production defaults.
-    import os as _os
-
-    _ceiling_no_retry = bool(int(_os.environ.get(
-        "TDGL_CEILING_NO_RETRY", "0")))
-    _ceiling_no_topup = bool(int(_os.environ.get(
-        "TDGL_CEILING_NO_TOPUP", "0")))
-
     def euler_with_retries(sten, rdtype, U, pr, pi, old_sq, mu,
                            epsilon, dt0):
         res0 = euler_psi(sten, U, pr, pi, old_sq, mu, epsilon, dt0)
-        if not cfg.adaptive or _ceiling_no_retry or cfg.fast_chunk:
+        if not cfg.adaptive or cfg.fast_chunk:
             return (res0.psi_r, res0.psi_i, res0.abs_sq_psi, dt0,
                     jnp.logical_not(res0.ok))
 
@@ -148,24 +125,14 @@ def make_grid_step_fn(cfg: StepConfig):
 
     def observables(sten, amg, U, pr, pi, dA_dt, neumann_term,
                     mu_guess, fixed_iters=None):
-        if cfg.use_pallas_step and not cfg.include_screening:
-            # Fused J_s+divergence (J_s never materializes in HBM). The
-            # screened path still needs the edge currents themselves (for
-            # the induced-potential kernel), so it keeps the explicit form.
-            from ..ops.pallas_step import fused_poisson_rhs
-
-            J_s = gs.supercurrent_on_edges(sten, U, pr, pi)
-            rhs = fused_poisson_rhs(sten, U, pr, pi, dA_dt, neumann_term)
-        else:
-            J_s = gs.supercurrent_on_edges(sten, U, pr, pi)
-            rhs = gs.poisson_rhs(sten, J_s, dA_dt, neumann_term)
+        J_s = gs.supercurrent_on_edges(sten, U, pr, pi)
+        rhs = gs.poisson_rhs(sten, J_s, dA_dt, neumann_term)
         # The outer (per-step) solve gets a tolerance-stopped top-up after
         # its fixed iterations: a no-op on warm-started steady state, but
         # cold starts / vortex-entry steps can need far more than the fixed
         # count. Inside the screening fixed point (explicit fixed_iters)
         # the solve must stay a smooth map, so no top-up there.
-        topup = (fixed_iters is None and not _ceiling_no_topup
-                 and not cfg.fast_chunk)
+        topup = fixed_iters is None and not cfg.fast_chunk
         if fixed_iters is None:
             fixed_iters = cfg.poisson_fixed_iters
         if cfg.poisson_use_mg:
@@ -293,20 +260,6 @@ def make_grid_step_fn(cfg: StepConfig):
                 if cfg.screening_use_fft:
                     if cfg.screening_eval_fn is not None:
                         A_new = cfg.screening_eval_fn(fft_data, sten, Jw)
-                    elif cfg.screening_fft_mxu:
-                        from ..ops import fft_screening as fs
-
-                        if cfg.screening_site_eval:
-                            A_new = fs.induced_vector_potential_mxu_site(
-                                fft_data, sten, Jw,
-                                cfg.screening_site_taps,
-                                bf16=cfg.screening_dft_bf16,
-                            )
-                        else:
-                            A_new = fs.induced_vector_potential_mxu(
-                                fft_data, sten, Jw,
-                                bf16=cfg.screening_dft_bf16,
-                            )
                     else:
                         from ..ops import fft_screening as fs
 
@@ -438,8 +391,7 @@ def make_grid_step_fn(cfg: StepConfig):
                 state.psi_r, state.psi_i, state.mu, state.A_induced, dt0,
                 solve_guess=guess,
             )
-            if ((cfg.poisson_fixed_iters is not None or cfg.poisson_use_mg)
-                    and not _ceiling_no_topup):
+            if cfg.poisson_fixed_iters is not None or cfg.poisson_use_mg:
                 # Fast chunks replace the top-up loop with a (looser,
                 # physics-validated) residual gate; a trip triggers the
                 # solver's chunk-level failover rather than a RuntimeError.
@@ -510,8 +462,7 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
     """Jitted ``(sten, screening_weights, amg, state) -> (state, outputs,
     exported)`` advancing up to ``chunk_size`` steps (grid backend).
 
-    Performance structure (measured on TPU; each matters at the ~50 us/step
-    scale):
+    Performance structure (each matters at a step time of tens of us):
 
     * The scan carry holds ONLY what a step actually changes — psi, mu, the
       scalars, and (with screening) the induced potential. Chunk-constant
@@ -575,13 +526,12 @@ def make_grid_chunk_fn(cfg: StepConfig, chunk_size: int):
             # Ghost ("post-done") steps still execute the step body on
             # stale state and get discarded by an elementwise select — NOT
             # a lax.cond: wrapping the step in a conditional breaks XLA's
-            # fusion/pipelining across the scan body (measured: -40%
-            # throughput at the 50k benchmark). Ghost steps are cheap
+            # fusion/pipelining across the scan body. Ghost steps are cheap
             # because (a) the screening while_loop's condition tests
             # state.done — the one loop whose ghost iterations could
-            # otherwise accumulate enough device time to trip the runtime's
-            # execution kill — and (b) the warm-started CG on an unchanged
-            # stale system converges immediately.
+            # otherwise accumulate real device time — and (b) the
+            # warm-started CG on an unchanged stale system converges
+            # immediately.
             frozen = carry["done"]
             st = state_of(carry)
             new_st, outputs = step_fn(sten, screening_weights, amg, st,

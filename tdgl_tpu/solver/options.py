@@ -1,7 +1,7 @@
 """Solver options.
 
 API parity with the reference ``tdgl/solver/options.py:19-166``, plus
-TPU-specific knobs (dtype, Poisson-CG tolerances, scan chunking). The
+knobs of its own (dtype, Poisson-CG tolerances, scan chunking). The
 reference's ``sparse_solver`` choices (SuperLU/UMFPACK/PARDISO/CuPy LU) do not
 exist here — the mu-Poisson equation is solved with device-resident CG — but
 the field is accepted for API compatibility.
@@ -21,7 +21,7 @@ class SolverOptionsError(ValueError):
 class SparseSolver(Enum):
     """Linear solver for the scalar-potential Poisson equation.
 
-    ``CG`` (the default, and the only TPU-native option) is a deflated,
+    ``CG`` (the default, and the only solver implemented) is a deflated,
     Jacobi-preconditioned conjugate-gradient solve. The reference's LU-based
     names are accepted as aliases of CG for API compatibility.
     """
@@ -50,7 +50,7 @@ class SolverOptions:
             (None disables the Dirichlet rows).
         output_file: Path for the HDF5 output (None = temporary file).
         gpu: Accepted for reference API compatibility (ignored: JAX manages
-            device placement; the TPU is used when available).
+            device placement; the accelerator is used when available).
         sparse_solver: See :class:`SparseSolver`.
         field_units / current_units: Units for fields and currents.
         pause_on_interrupt: Pause interactively on Ctrl-C.
@@ -65,7 +65,8 @@ class SolverOptions:
         screening_tolerance: Relative screening convergence tolerance.
         screening_step_size: Polyak step size alpha.
         screening_step_drag: Polyak drag beta.
-        dtype: "float32" (TPU-native) or "float64" (CPU parity runs).
+        dtype: "float32" (accelerator default) or "float64" (parity
+            runs).
         poisson_tolerance: Relative CG tolerance for the mu solve.
         poisson_max_iterations: CG iteration cap.
         steps_per_chunk: TDGL steps fused into one compiled scan between host
@@ -73,8 +74,8 @@ class SolverOptions:
             chunk boundaries).
         profile_dir: If set, wrap the whole run in ``jax.profiler.trace``
             writing a TensorBoard-compatible XLA trace to this directory
-            (device timelines, HLO cost breakdowns). TPU-native replacement
-            for the reference's cProfile-based tracing.
+            (device timelines, HLO cost breakdowns), in place of the
+            reference's cProfile-based tracing.
         save_checkpoints: Overwrite a full-state ``checkpoint`` group in
             the output file at every snapshot, enabling exact mid-run
             resume via ``solve(resume_from=path)`` (see the field comment
@@ -105,13 +106,12 @@ class SolverOptions:
     screening_tolerance: float = 1e-3
     screening_step_size: float = 0.1
     screening_step_drag: float = 0.5
-    # TPU-specific options
+    # Options of this implementation
     dtype: str = "float32"
     # Which compiled solver backend to use: "auto" picks the gather-free
     # stencil backend when the mesh is structured (Device.make_mesh(
     # structured=True)) and the ELL gather backend otherwise; "stencil" and
-    # "ell" force one (stencil requires a structured mesh). On TPU the
-    # stencil backend is ~3 orders of magnitude faster.
+    # "ell" force one (stencil requires a structured mesh).
     solver_backend: str = "auto"
     # Screening-error normalization ("auto", "per_edge", "global"):
     # the reference compares |dA_e| / |A_e| per edge
@@ -127,31 +127,11 @@ class SolverOptions:
     #   "fft"    — exact O(N log N) lattice convolution
     #              (ops/fft_screening.py; structured meshes only);
     #   "xla"    — blocked O(E x S) rsqrt+matmul (ops/screening.py);
-    #   "mxu"    — the FFT convolution with every transform expressed as
-    #              a dense DFT matmul on the systolic array (same math,
-    #              parity-tested; XLA's TPU FFT lowering is lane-shuffle
-    #              -bound, measured ~0.5 TFLOP/s).
-    # (A fused Pallas pairwise kernel existed through round 3 and was
-    # deleted: the pairwise sum is VPU-rsqrt-bound — E x S ~ 7.5e9 rsqrts
-    # is a ~20 ms floor that the XLA blocked form already sits at via the
-    # MXU dot-product distance trick — so no kernel formulation can beat
-    # "xla", and "fft" superseded both on structured meshes. Measured 45
-    # vs 22 ms; see docs/perf_notes.md.)
+    # (A dense-DFT-matmul form of the "fft" convolution was removed after
+    # it lost to the cuFFT "fft" kernel on the screened 50k-site benchmark,
+    # on an NVIDIA H100 80GB HBM3 at 700 W: 2,025-2,045 against
+    # 2,621-2,626 steps/s.)
     screening_kernel: str = "auto"
-    # Operand precision of the MXU DFT screening matmuls: "high" (bf16x3,
-    # ~5e-7 kernel parity — exact for f32 purposes) or "bf16" (single-pass
-    # bf16, 3x less MXU work, a deterministic ~1e-3 relative kernel
-    # perturbation — the same order as the f32 screening precision floor).
-    # "auto" (default): the robust chunk program uses "high"; the gated
-    # FAST chunk program (chunk_failover) uses "bf16" on float32 — the
-    # per-step health gates (screening error within tolerance, mu
-    # residual) catch any step where the cheap operands cannot converge
-    # and rewind it to the robust/high program, so the approximation is
-    # self-policing. Measured at the 50k benchmark (within-process A/B,
-    # docs/perf_notes.md): +5.4% alone, +26% combined with the fast
-    # inner-iteration count and scan unroll 2. Only meaningful with
-    # screening_kernel "mxu"/"auto" on TPU.
-    screening_dft_precision: str = "auto"
     # CG iterations per mu solve inside the screening fixed point. A fixed
     # count (rather than tolerance-stopped CG) makes each solve a smooth map,
     # which the fixed-point iteration needs to converge below the CG
@@ -172,10 +152,8 @@ class SolverOptions:
     # steady state, and the fast program's residual/tolerance gates
     # rewind any step the shallower solve cannot hold (cold starts DO
     # trip it; the first chunks re-run robust while the transient
-    # decays). Measured at the 50k benchmark (within-process A/B):
-    # +12% alone over the 5-iteration fast program. Same as
-    # screening_cg_iterations at float64 (parity runs keep the deep
-    # count).
+    # decays). Same as screening_cg_iterations at float64 (parity runs
+    # keep the deep count).
     screening_fast_iterations: Optional[int] = None
     # Evaluate the screening convolution at the lattice SITES with a
     # single moment-matched kernel (self term calibrated so a locally
@@ -184,7 +162,7 @@ class SolverOptions:
     # class exactly: ~half the arithmetic, 1/3 of the inverse-transform
     # batch and intermediates. The residual is an O(h^2) discretization
     # difference of the same order as the float32 screening precision
-    # floor (measured; docs/perf_notes.md). None = auto: enabled inside
+    # floor (measured). None = auto: enabled inside
     # the gated FAST chunk program at float32 (the robust rewind program
     # keeps the exact per-class convolution), disabled elsewhere.
     # True/False force it for BOTH programs (True also on float64).
@@ -209,11 +187,10 @@ class SolverOptions:
     # Relative residual tolerance of the mu solve. None = auto: 1e-4 at
     # float32, 1e-6 at float64. Measured against full float64 references
     # on transport AND vortex-dynamics workloads (tools/tol_study.py,
-    # docs/perf_notes.md): psi and mu errors vs float64 are identical for
+    # docs/validation.md): psi and mu errors vs float64 are identical for
     # mu tolerances from 3e-6 all the way to 1e-3 (float32 rounding of the
     # inputs dominates both), so tightening below 1e-4 only buys extra
-    # solver iterations (~1 full MG-CG iteration per factor ~20 in the
-    # benchmark's hard window). Explicit values are always honored
+    # solver iterations. Explicit values are always honored
     # (floored at 50*eps of the working precision).
     poisson_tolerance: Optional[float] = None
     poisson_max_iterations: int = 1500
@@ -226,10 +203,8 @@ class SolverOptions:
     # None = auto: 2 fixed iterations (plus the tolerance-stopped top-up)
     # on the float32 structured deep-multigrid path — the fixed phase
     # covers steady/smooth steps and the top-up supplies what hard
-    # (vortex-entry / dense-lattice) steps still need, measured ~3 total
-    # iterations/step in the 50k benchmark's hard window with the default
-    # "previous" warm start. Tolerance-stopped everywhere else. 0 = force
-    # tolerance-stopped CG.
+    # (vortex-entry / dense-lattice) steps still need.
+    # Tolerance-stopped everywhere else. 0 = force tolerance-stopped CG.
     poisson_fixed_iterations: Optional[int] = None
     # Warm-start guess for the mu-Poisson solve: "previous" (default)
     # warm-starts from mu_n; "extrapolate" uses the linear predictor
@@ -247,34 +222,9 @@ class SolverOptions:
     # the per-step residual check fails the run if tolerance is missed).
     poisson_solver: str = "cg"
     poisson_preconditioner: str = "amg"   # "amg" (two-level) or "jacobi"
-    # Performance router for the unstructured (ELL, gather-based) backend.
-    # History: round 2 measured reproducible TPU kernel faults for large
-    # gather programs (~50k sites), which this fence originally guarded
-    # against. Round 5 re-measured on the then-current runtime
-    # (tools/ell_fault_probe.py, tools/unstructured_solve_probe.py): the
-    # fault is GONE — the full production ELL solve completes cleanly on
-    # TPU at 50k sites — but it runs gather-bound at 9.0 steps/s vs 32.4
-    # steps/s for the SAME workload on the host CPU (3.6x), because the
-    # TPU has no fast general scatter/gather and every CG iteration is a
-    # neighbor gather. So the fence remains as a measured performance
-    # router: unstructured meshes larger than this limit execute on the
-    # host CPU with a warning. Set to None to force on-accelerator
-    # execution (works, slow). Structured meshes
-    # (make_mesh(structured=True)) are unaffected — they are the fast
-    # TPU path at scale (~1000x at 50k: 8,863 steps/s).
-    unstructured_tpu_site_limit: Optional[int] = 30_000
     amg_coarsening: Optional[int] = None  # aggregate size (None = auto)
     steps_per_chunk: Optional[int] = None
     profile_dir: Optional[str] = None  # write a jax.profiler trace here
-    # Fused single-pass Pallas kernels for the stencil step body (psi
-    # update, Poisson RHS). None = auto = OFF: measured on the 50k
-    # benchmark they lose to XLA's roll-chain formulation (XLA already
-    # runs each stencil op at the HBM roofline and pipelines across the
-    # scan; the pallas_call fusion barrier costs more than it saves —
-    # docs/perf_notes.md). Kept available and parity-pinned
-    # (tests/test_pallas_step.py) as the honest record. Incompatible with
-    # spatial sharding — shard_solver_spatially rebuilds without it.
-    pallas_step: Optional[bool] = None
     # Premultiply the FV weights into the hoisted (static-A) link phases
     # so the psi update reads 12 planes instead of 18 (the step is
     # HBM-bandwidth bound). Same math up to rounding order. None = auto:
@@ -296,13 +246,12 @@ class SolverOptions:
     # the reference rounding order for the oracle parity pins.
     factor_link_phases: Optional[bool] = None
     # lax.scan unroll factor for the compiled chunk loop. None = auto:
-    # 2 on the structured unscreened chunk (+12% measured on the 50k TPU
-    # benchmark — XLA overlaps one step's serial reductions with the
-    # neighbor step's elementwise work) and on the structured screened
-    # FAST program (+10% within-process A/B; the robust screened program
+    # 2 on the structured unscreened chunk (XLA can overlap one step's
+    # serial reductions with the neighbor step's elementwise work) and on
+    # the structured screened FAST program (the robust screened program
     # keeps 1 — its fixed-point while_loop body does not unroll). Pure
     # scheduling: the per-step math is unchanged. Higher values raise
-    # compile time and measured net negative at 4 (docs/perf_notes.md).
+    # compile time. The default has not been re-measured on the GPU.
     scan_unroll: Optional[int] = None
     # "Steady fast chunk" with chunk-level failover (stencil backend):
     # compile the chunk WITHOUT the per-step dt-retry and mu-top-up
@@ -318,9 +267,8 @@ class SolverOptions:
     # while_loop program (compiled lazily on first use), so anomalous
     # steps are still repaired exactly as without this option — the fast
     # program only ever commits chunks whose every step passed. Rationale:
-    # the two loop barriers cost ~7% of step time even on benchmark
-    # windows where they NEVER fire (docs/perf_notes.md "structural
-    # overhead"); steady-state TDGL evolution essentially never retries.
+    # the two loop barriers cost step time even on windows where they
+    # NEVER fire; steady-state TDGL evolution essentially never retries.
     # Cold starts DO retry (the dt ramp overshoots within the first
     # chunk), so a from-scratch solve typically fails over exactly once
     # on its first chunk and runs fast thereafter; warm starts
@@ -333,10 +281,10 @@ class SolverOptions:
     # iterations, but the five Gram scalars form ONE independent
     # reduction batch instead of four sequential reduction->scalar->
     # broadcast sync points. Applies when the auto fixed-2 MG-CG solve is
-    # active. None = auto (measured on-TPU per docs/perf_notes.md).
+    # active. None = auto (off).
     poisson_sstep: Optional[bool] = None
     # Store the folded link tables in bfloat16: halves their read
-    # bandwidth (+5% measured end-to-end on the 50k benchmark) at a
+    # bandwidth at a
     # ~4e-3 relative perturbation of the link phases (~0.4% effective
     # applied-field error). MEASURED PHYSICS IMPACT (docs/validation.md):
     # near vortex-entry degeneracies the perturbation selects a different
@@ -358,14 +306,14 @@ class SolverOptions:
     # host fetch of the state per snapshot; disable for maximum-throughput
     # runs that never need resuming.
     save_checkpoints: bool = True
-    # Enable jax's persistent compilation cache (per-user directory,
-    # ~/.cache/tdgl_tpu/jax_cache) when constructing a solver: the
-    # production chunk program takes minutes to compile on TPU cold, and
-    # seconds warm. NOTE this mutates process-wide jax config
-    # (jax_compilation_cache_dir) as a side effect — set False when
-    # embedding tdgl_tpu in an application that manages its own jax cache
-    # config (a user-configured jax cache dir is always left untouched;
-    # env opt-out: TDGL_TPU_NO_COMPILE_CACHE=1).
+    # Enable jax's persistent compilation cache when constructing a solver
+    # (JAX_COMPILATION_CACHE_DIR if set, else .jax_cache at the root of the
+    # checkout; see tdgl_tpu.utils.compile_cache): a warm cache turns the
+    # chunk program's compilation into a load. NOTE this mutates
+    # process-wide jax config (jax_compilation_cache_dir) as a side effect;
+    # a cache directory already configured in jax is left untouched. Set
+    # False when embedding tdgl_tpu in an application that manages its own
+    # jax cache config.
     compilation_cache: bool = True
 
     def validate(self) -> None:
@@ -432,14 +380,9 @@ class SolverOptions:
                 "chunk_failover must be 'auto', 'on', or 'off'"
                 f" (got {self.chunk_failover})."
             )
-        if self.screening_dft_precision not in ("auto", "high", "bf16"):
+        if self.screening_kernel not in ("auto", "fft", "xla"):
             raise SolverOptionsError(
-                "screening_dft_precision must be 'auto', 'high', or 'bf16'"
-                f" (got {self.screening_dft_precision})."
-            )
-        if self.screening_kernel not in ("auto", "fft", "xla", "mxu"):
-            raise SolverOptionsError(
-                "screening_kernel must be 'auto', 'fft', 'xla', or 'mxu'"
+                "screening_kernel must be 'auto', 'fft', or 'xla'"
                 f" (got {self.screening_kernel})."
             )
         if self.poisson_warm_start not in ("previous", "extrapolate"):

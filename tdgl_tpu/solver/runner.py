@@ -24,9 +24,7 @@ from datetime import datetime
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
 
-import h5py
 import numpy as np
-from tqdm import tqdm
 
 from ..utils.jaxio import host_scalar, to_numpy, tree_to_numpy
 from .options import SolverOptions
@@ -67,6 +65,7 @@ class DataHandler:
             path = os.path.join(directory, file_name)
             tmp_path = path + ".tmp"
             try:
+                import h5py
                 f = h5py.File(path, "x")
                 tmp = h5py.File(tmp_path, "x", libver="latest")
             except (OSError, FileExistsError):
@@ -370,6 +369,7 @@ class Runner:
         last_report = _time.perf_counter()
         steps_at_report = 0
 
+        from tqdm import tqdm
         with tqdm(total=float(end_time), desc=name, unit="tau",
                   disable=prog_disabled, dynamic_ncols=True) as pbar:
             if save:

@@ -39,9 +39,8 @@ from ..ops.screening import induced_vector_potential
 class SolverState(NamedTuple):
     """The full device-resident solver state (a pytree)."""
 
-    psi: jax.Array              # (N, 2) re/im pair (split complex; the TPU
-                                # runtime cannot run complex64 programs —
-                                # see models/gtdgl.py)
+    psi: jax.Array              # (N, 2) re/im pair (split complex; see
+                                # models/gtdgl.py)
     mu: jax.Array               # (N,)
     mu_prev: jax.Array          # (N,) — previous step's mu (solve predictor)
     supercurrent: jax.Array     # (E,)
@@ -155,16 +154,6 @@ class StepConfig:
     screening_global_error_norm: bool = False
     # Exact FFT-convolution induced-A kernel (structured backend only).
     screening_use_fft: bool = False
-    # Evaluate the convolution's transforms as dense DFT matmuls on the
-    # MXU instead of XLA FFTs (ops.fft_screening.induced_vector_potential
-    # _mxu — same math, parity-tested; XLA's TPU FFT lowering is
-    # lane-shuffle-bound).
-    screening_fft_mxu: bool = False
-    # Run the MXU DFT matmuls at bf16x1 operand precision (~1e-3 relative
-    # kernel perturbation — a deterministic operator within the f32
-    # screening envelope) instead of bf16x3. Opt-in speed/precision trade;
-    # see SolverOptions.screening_dft_precision.
-    screening_dft_bf16: bool = False
     # Evaluate the screening convolution at the lattice SITES with a
     # single moment-matched kernel and interpolate to the 3 edge classes
     # (ops.fft_screening.induced_vector_potential_*_site): ~half the
@@ -227,9 +216,7 @@ class StepConfig:
     # lax.scan unroll factor for the chunk loop. >1 lets XLA interleave
     # independent work of adjacent steps (the step's serial reductions
     # overlap the next step's elementwise planes) at higher compile cost.
-    # Pure scheduling — the per-step math is unchanged. Measured on the
-    # 50k TPU benchmark: unroll 2 +12% end-to-end, unroll 4 net negative
-    # (docs/perf_notes.md).
+    # Pure scheduling — the per-step math is unchanged.
     scan_unroll: int = 1
     # Stencil backend "steady fast chunk": strip the per-step retry and
     # top-up while_loops from the compiled chunk entirely (single psi
@@ -239,9 +226,8 @@ class StepConfig:
     # chunk-level failover: on a flag, the host rewinds to the chunk-start
     # state (chunk inputs are not donated) and re-runs the chunk with the
     # robust while_loop program, so the accepted trajectory never contains
-    # a flagged step. Measured motivation: the two loop barriers cost
-    # ~7% of step time at the 50k benchmark even on windows where they
-    # never fire (docs/perf_notes.md "structural overhead").
+    # a flagged step. Motivation: the two loop barriers cost step time
+    # even on windows where they never fire.
     fast_chunk: bool = False
     # Residual gate for fast-chunk steps (same norm as poisson_tolerance).
     # Steps landing in (poisson_tolerance, poisson_fail_gate] are accepted
@@ -250,14 +236,6 @@ class StepConfig:
     # drift up to 1e-3) — anything above triggers chunk failover. 0.0
     # means "use the robust gate" (only meaningful with fast_chunk).
     poisson_fail_gate: float = 0.0
-    # Stencil backend: fused single-pass Pallas kernels for the psi update
-    # and the Poisson RHS (ops.pallas_step) instead of the roll-chain XLA
-    # formulation. Each input plane is read from HBM exactly once; physics
-    # identical (parity-pinned). Requires the grid to fit VMEM as a single
-    # block (fine at the (256, 384) benchmark scale) and is incompatible
-    # with spatial sharding (a pallas_call cannot be auto-partitioned), so
-    # shard_solver_spatially rebuilds the chunk without it.
-    use_pallas_step: bool = False
 
 
 def make_step_fn(cfg: StepConfig):

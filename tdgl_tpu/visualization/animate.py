@@ -8,7 +8,6 @@ from __future__ import annotations
 import logging
 from typing import Optional, Sequence, Union
 
-import h5py
 import numpy as np
 
 from ..solution.data import get_data_range
@@ -56,6 +55,7 @@ def create_animation(
     quantities = [Quantity.from_key(str(q)) for q in quantities]
 
     own_file = isinstance(input_file, str)
+    import h5py
     f = h5py.File(input_file, "r") if own_file else input_file
     try:
         if "mesh" in f:

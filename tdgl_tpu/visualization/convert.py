@@ -10,7 +10,6 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-import h5py
 import numpy as np
 
 from ..solution.data import get_data_range
@@ -47,6 +46,7 @@ def convert_to_xdmf(
     if output_file is None:
         output_file = os.path.splitext(input_file)[0] + ".xdmf"
     heavy_path = output_file + ".h5"
+    import h5py
     with h5py.File(input_file, "r") as f:
         if "mesh" in f:
             mesh = Mesh.from_hdf5(f["mesh"])

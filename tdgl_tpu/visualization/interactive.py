@@ -10,7 +10,6 @@ from __future__ import annotations
 import logging
 from typing import Optional, Sequence, Union
 
-import h5py
 import numpy as np
 
 from ..solution.data import get_data_range
@@ -140,6 +139,7 @@ class InteractivePlot:
     def show(self):
         import matplotlib.pyplot as plt
 
+        import h5py
         with h5py.File(self.input_file, "r") as f:
             self._build(f)
             plt.show()
@@ -225,6 +225,7 @@ class MultiInteractivePlot:
     def show(self):
         import matplotlib.pyplot as plt
 
+        import h5py
         with h5py.File(self.input_file, "r") as f:
             self._build(f)
             plt.show()

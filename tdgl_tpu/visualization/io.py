@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import Sequence, Tuple
 
-import h5py
 import numpy as np
 
 from ..fv.mesh import Mesh

@@ -12,7 +12,6 @@ import os
 import time
 from typing import Optional, Sequence, Union
 
-import h5py
 import numpy as np
 
 from .common import DEFAULT_QUANTITIES, PLOT_DEFAULTS, Quantity, auto_grid
@@ -51,6 +50,7 @@ def monitor_solution(
         raise FileNotFoundError(h5path)
 
     plt.ion()
+    import h5py
     with h5py.File(h5path, "r", libver="latest", swmr=True) as f:
         device = Device.from_hdf5(f["solution/device"])
         mesh = device.mesh

@@ -7,7 +7,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
-import h5py
 import numpy as np
 
 from ..solution.data import get_data_range
@@ -40,6 +39,7 @@ def generate_snapshots(
         quantities = [quantities]
     quantities = [Quantity.from_key(str(q)) for q in quantities]
     figures = []
+    import h5py
     with h5py.File(input_file, "r") as f:
         if "mesh" in f:
             mesh = Mesh.from_hdf5(f["mesh"])

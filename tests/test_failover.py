@@ -92,7 +92,7 @@ def test_failover_screened_bitwise_vs_robust():
     screened trajectory is IDENTICAL to chunk_failover='off'."""
     kw = dict(include_screening=True, screening_tolerance=1e-2,
               screening_fast_iterations=5, scan_unroll=1,
-              screening_dft_precision="high", screening_site_eval=False)
+              screening_site_eval=False)
     s_fast, sol_fast = _solve("float32", "auto", **kw)
     s_rob, sol_rob = _solve("float32", "off", **kw)
     assert hasattr(s_fast, "_fast_chunk_fn")
@@ -106,8 +106,8 @@ def test_failover_screened_bitwise_vs_robust():
 
 def test_failover_screened_auto_fast_config():
     """The auto fast screened program runs the measured-best cheap
-    configuration (scan unroll 2, 3 inner fixed iterations; single-pass
-    bf16 DFT operands only on the MXU kernel) while the robust rewind
+    configuration (scan unroll 2, 3 inner fixed iterations, the
+    site-evaluated convolution) while the robust rewind
     program keeps the deep/exact settings — and its committed physics
     stays within the gate tolerances of the robust trajectory."""
     kw = dict(include_screening=True, screening_tolerance=1e-2)
@@ -116,15 +116,13 @@ def test_failover_screened_auto_fast_config():
     fast_cfg = s_fast._fast_cfg
     assert fast_cfg.scan_unroll == 2
     assert fast_cfg.screening_cg_iters == 3
-    assert fast_cfg.screening_dft_bf16 == bool(fast_cfg.screening_fft_mxu)
     # Site-evaluated interpolated convolution in the fast program only
     # (with its static near-field correction stencils baked in).
     assert fast_cfg.screening_site_eval
     assert len(fast_cfg.screening_site_taps) == 3
-    # Robust program untouched: deep inner count, exact operands and
-    # exact per-edge-class convolution.
+    # Robust program untouched: deep inner count and the exact
+    # per-edge-class convolution.
     assert s_fast.cfg.screening_cg_iters == 5
-    assert not s_fast.cfg.screening_dft_bf16
     assert not s_fast.cfg.screening_site_eval
     a = np.abs(np.asarray(sol_fast.tdgl_data.psi))
     b = np.abs(np.asarray(sol_rob.tdgl_data.psi))
@@ -144,7 +142,7 @@ def test_screened_fast_mu_gate_follows_fail_gate():
 
     kw = dict(include_screening=True, screening_tolerance=1e-2,
               screening_fast_iterations=5, scan_unroll=1,
-              screening_dft_precision="high", screening_site_eval=False)
+              screening_site_eval=False)
     s, _ = _solve("float64", "auto", **kw)
     from tdgl_tpu.solver.grid_step import make_grid_chunk_fn
 

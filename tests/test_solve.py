@@ -397,7 +397,7 @@ def test_screening(screening_device):
         error = abs(total / fluxoid.flux_part.magnitude)
         assert error < 5e-2
 
-    # The same screened gate at float32 (TPU-native dtype): the requested
+    # The same screened gate at float32 (the default dtype): the requested
     # 1e-6 tolerance is clamped to the documented f32 precision floor
     # (~5e-4 globally normalized), which is far more accuracy than the
     # fluxoid quantization check needs.

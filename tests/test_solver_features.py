@@ -2,6 +2,7 @@
 (jittable) time-dependent fast path vs the host path, thermalization, and
 fixed-dt mode."""
 
+import jax
 import numpy as np
 import pytest
 
@@ -226,37 +227,22 @@ def test_structured_mesh_rejects_unstructured_kwargs():
         device.make_mesh(min_points=500, structured=True, max_volume=0.1)
 
 
-def test_ell_tpu_fence_decision():
-    """The ELL fence routes oversized unstructured meshes away from
-    accelerators (a measured performance choice: the TPU ELL path runs
-    but is gather-bound ~3.6x slower than the host at 50k sites —
-    tools/unstructured_solve_probe.py) and leaves everything else
-    alone."""
+def test_unstructured_solver_stays_on_default_device():
+    """An unstructured (ELL) solve runs where jax puts it: its operators,
+    preconditioner and state all live on ``jax.devices()[0]``."""
     from tdgl_tpu.solver.solver import TDGLSolver
 
-    options = tdgl.SolverOptions(solve_time=1)
-    # Structured meshes and CPU runs are never fenced.
-    assert TDGLSolver._select_exec_device(
-        structured=True, n_sites=10**6, backend="tpu", options=options
-    ) is None
-    assert TDGLSolver._select_exec_device(
-        structured=False, n_sites=10**6, backend="cpu", options=options
-    ) is None
-    # Small unstructured meshes run where they are.
-    assert TDGLSolver._select_exec_device(
-        structured=False, n_sites=20_000, backend="tpu", options=options
-    ) is None
-    # Oversized unstructured meshes on an accelerator route to the CPU
-    # (in this CPU-only test env jax.devices("cpu") exists, so the fence
-    # returns that device).
-    dev = TDGLSolver._select_exec_device(
-        structured=False, n_sites=50_000, backend="tpu", options=options
-    )
-    assert dev is not None and dev.platform == "cpu"
-    # Fence disabled -> never routes.
-    options_off = tdgl.SolverOptions(
-        solve_time=1, unstructured_tpu_site_limit=None
-    )
-    assert TDGLSolver._select_exec_device(
-        structured=False, n_sites=10**6, backend="tpu", options=options_off
-    ) is None
+    layer = tdgl.Layer(coherence_length=1.0, london_lambda=2, thickness=0.1)
+    film = tdgl.Polygon("film", points=box(8)).resample(100)
+    device = tdgl.Device("film", layer=layer, film=film)
+    device.make_mesh(min_points=400)
+    solver = TDGLSolver(device, tdgl.SolverOptions(solve_time=1,
+                                                   save_every=5))
+    assert not solver.structured
+    state = solver._initial_state()
+    home = jax.devices()[0]
+    leaves = jax.tree.leaves((solver.op, solver.amg,
+                              solver._screening_weights, state))
+    assert leaves and all(leaf.devices() == {home} for leaf in leaves)
+    state, _, _ = solver.chunk_fn(state)
+    assert all(leaf.devices() == {home} for leaf in jax.tree.leaves(state))

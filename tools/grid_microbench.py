@@ -24,8 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 VARIANTS = ("noop", "reduce", "stencil", "vcycle", "cg2", "cg3", "mgr2",
             "mgr3", "sstep2", "fft_screen", "psi_update", "psi_folded",
-            "psi_factored", "psi_pallas", "rhs_xla", "rhs_factored",
-            "rhs_pallas")
+            "psi_factored", "rhs_xla", "rhs_factored")
 
 
 def main():
@@ -43,12 +42,6 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/jax_compile_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 10.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     import numpy as np
 
@@ -181,17 +174,6 @@ def main():
                                  state.neumann_term)
             return x + eps * rhs
         timed("rhs_factored", rhs_factored_fn, state.psi_r, args.iters)
-    if "psi_pallas" in chosen:
-        from tdgl_tpu.ops.pallas_step import fused_psi_update
-
-        def psi_pallas_fn(carry):
-            pr, pi = carry
-            new_r, new_i, _sq, _ok = fused_psi_update(
-                solver.cfg.gamma, solver.cfg.u, sten, U0, pr, pi, r0,
-                state.epsilon, jnp.asarray(1e-4, rd))
-            return (new_r, new_i)
-        timed("psi_pallas", psi_pallas_fn, (state.psi_r, state.psi_i),
-              args.iters)
     if "rhs_xla" in chosen:
         def rhs_xla_fn(x):
             J_s = gs.supercurrent_on_edges(sten, U0, x, state.psi_i)
@@ -199,15 +181,6 @@ def main():
                                  state.neumann_term)
             return x + eps * rhs
         timed("rhs_xla", rhs_xla_fn, state.psi_r, args.iters)
-    if "rhs_pallas" in chosen:
-        from tdgl_tpu.ops.pallas_step import fused_poisson_rhs
-
-        def rhs_pallas_fn(x):
-            rhs = fused_poisson_rhs(sten, U0, x, state.psi_i,
-                                    state.dA_dt, state.neumann_term)
-            return x + eps * rhs
-        timed("rhs_pallas", rhs_pallas_fn, state.psi_r, args.iters)
-
     rhs0 = gs.poisson_rhs(
         sten, gs.supercurrent_on_edges(sten, U0, state.psi_r, state.psi_i),
         state.dA_dt, state.neumann_term)
@@ -246,27 +219,20 @@ def main():
     if "mgr3" in chosen:
         timed("mgr3", solve_variant("mgr", 3), state.mu, args.iters)
 
-    if "fft_screen" in chosen or "mxu_screen" in chosen:
+    if "fft_screen" in chosen:
         from tdgl_tpu.ops.fft_screening import (
             build_fft_screening,
             induced_vector_potential_fft,
-            induced_vector_potential_mxu,
         )
 
         fftd = build_fft_screening(solver.host_sten, maps,
                                    device.mesh.grid)
         Jw0 = jnp.stack([r0, -r0], axis=-1)
 
-        if "fft_screen" in chosen:
-            def f_fn(Jw):
-                A = induced_vector_potential_fft(fftd, sten, Jw)
-                return Jw + eps * A[0]
-            timed("fft_screen", f_fn, Jw0, max(20, args.iters // 5))
-        if "mxu_screen" in chosen:
-            def m_fn(Jw):
-                A = induced_vector_potential_mxu(fftd, sten, Jw)
-                return Jw + eps * A[0]
-            timed("mxu_screen", m_fn, Jw0, max(20, args.iters // 5))
+        def f_fn(Jw):
+            A = induced_vector_potential_fft(fftd, sten, Jw)
+            return Jw + eps * A[0]
+        timed("fft_screen", f_fn, Jw0, max(20, args.iters // 5))
 
 
 if __name__ == "__main__":

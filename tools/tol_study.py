@@ -83,9 +83,8 @@ def run(device, solver_kwargs, *, dtype, tol, steps, chunk, dt,
         # The gated fixed-1 fast program: ONE MG-CG iteration per step,
         # committed iff the residual holds the 10x-tolerance fail gate
         # (1e-2 at tol=1e-3); gate trips rewind the chunk to the robust
-        # (fixed+top-up) program. This is the exact configuration of the
-        # round-5 fast-program candidate measured at 14.1k steps/s
-        # on-chip (docs/perf_notes.md).
+        # (fixed+top-up) program: the unscreened fast program's own
+        # configuration.
         extra.update(poisson_fixed_iterations=1, chunk_failover="auto")
     options = tdgl.SolverOptions(
         solve_time=1e9, dt_init=dt, adaptive=False,
